@@ -1,10 +1,10 @@
-"""adVNTR-TPU: a TPU-native framework for genotyping Variable Number Tandem Repeats.
+"""adVNTR-TPU: a JAX framework for genotyping Variable Number Tandem Repeats.
 
 A from-scratch reimplementation of the capabilities of adVNTR (Bakhtiari et al.,
-Genome Research 2018) designed for TPU hardware:
+Genome Research 2018) built around batched accelerator kernels:
 
 - profile-HMM Viterbi decoding runs as batched, padded log-space dynamic
-  programming on device (JAX/XLA, with a Pallas fast path), replacing the
+  programming on device (JAX/XLA), replacing the
   reference's per-read Cython graph DP (reference: pomegranate/hmm.pyx:1970).
 - silent states (delete chains, unit boundaries) are eliminated at model-compile
   time via a max-plus transitive closure, so the device kernel sees a clean

@@ -23,7 +23,7 @@ FRAMESHIFT_VNTRS = [25561, 519759]
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="advntr-tpu",
-        description="adVNTR-TPU %s: TPU-native genotyping tool for VNTRs"
+        description="adVNTR-TPU %s: genotyping tool for VNTRs"
         % __version__)
     sub = parser.add_subparsers(title="Commands", dest="command")
 
@@ -97,7 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
     b = sub.add_parser(
         "buildbank",
         help="precompile the locus model bank offline so genotyping runs "
-             "start warm (the TPU-native analog of the reference's "
+             "start warm (the analog of the reference's "
              "per-(locus, read-length) trained-HMM JSON cache, "
              "advntr/vntr_finder.py:117-138)")
     b.add_argument("-m", "--models", type=str, metavar="<file>", default=None)
@@ -242,7 +242,8 @@ def build_bank(args) -> None:
     import time
 
     from advntr_tpu.engine.finder import (bank_payload_path,
-                                          build_and_save_payload)
+                                          build_and_save_payload,
+                                          host_process_pool)
     from advntr_tpu.models.db import load_unique_vntrs_data
 
     config = Config().with_platform(args.pacbio, args.nanopore)
@@ -273,7 +274,7 @@ def build_bank(args) -> None:
     t0 = time.perf_counter()
     done = 0
     if jobs:
-        with concurrent.futures.ProcessPoolExecutor(workers) as pool:
+        with host_process_pool(workers) as pool:
             futs = [pool.submit(build_and_save_payload, *job)
                     for job in jobs]
             tick = max(1, math.ceil(len(futs) / 20))

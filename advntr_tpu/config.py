@@ -34,7 +34,7 @@ class Config:
     # Frameshift (reference: settings.py:36)
     frameshift_vntrs: tuple[int, ...] = (25561, 519759)
     # Report forward-backward posterior indel support alongside the binomial
-    # LR call (ops/posterior.py; a TPU-native capability beyond the
+    # LR call (ops/posterior.py; a device capability beyond the
     # reference's Viterbi-path count, vntr_finder.py:256-309)
     frameshift_posterior: bool = True
 

@@ -50,7 +50,8 @@ def pad_batch(seqs: list[np.ndarray], pad_to: int | None = None,
               multiple: int = 128) -> tuple[np.ndarray, np.ndarray]:
     """Pad a list of encoded reads into a dense (B, L) int8 batch + lengths.
 
-    L is rounded up to `multiple` for TPU lane alignment. Padding value is 0
+    L is rounded up to `multiple` to bound the number of compiled shapes.
+    Padding value is 0
     (the kernel masks out steps past each read's length).
     """
     lengths = np.array([len(s) for s in seqs], dtype=np.int32)

@@ -68,6 +68,8 @@ def init_params(rng_key, first_layer: int = 100, second_layer: int = 0):
 
 
 def forward(params, x):
+    # default matmul precision: on a GPU the products may run in TF32
+    # (~3 decimal digits), which is ample for a two-class argmax
     h = jax.nn.relu(x @ params["w1"] + params["b1"])
     if "w2" in params:
         h = jax.nn.relu(h @ params["w2"] + params["b2"])

@@ -219,20 +219,6 @@ def read_stats_struct_ckpt(struct_arrays, meta_arrays, seqs, lengths,
                                return_path=return_path)
 
 
-@functools.partial(jax.jit, static_argnames=("return_path", "interpret"))
-def read_stats_pallas(pallas_arrays, meta_arrays, seqs, lengths,
-                      return_path: bool = False, interpret: bool = False):
-    """Fused Viterbi + traceback + analytics, all inside the Pallas
-    provenance kernel pair (meta_arrays unused: the kernel carries its own
-    struct-space metadata; kept for signature parity with the struct
-    path)."""
-    del meta_arrays
-    from advntr_tpu.ops.pallas_viterbi import viterbi_pallas_stats
-    return viterbi_pallas_stats(pallas_arrays, seqs, lengths,
-                                return_path=return_path,
-                                interpret=interpret)
-
-
 def flank_rates(stats: dict, accuracy_filter: bool = False) -> np.ndarray:
     """min(left, right) flank matching rate per read (host, from counts).
 
@@ -270,24 +256,3 @@ def read_stats_struct_grouped(stacked_struct, stacked_meta, seqs, lengths,
 
     return jax.vmap(one)(stacked_struct, stacked_meta, seqs, lengths,
                          suffix_lasts)
-
-
-@functools.partial(jax.jit, static_argnames=("return_path", "interpret"))
-def read_stats_pallas_grouped(stacked_pallas, stacked_meta, seqs, lengths,
-                              return_path: bool = False,
-                              interpret: bool = False):
-    """Grouped fused scoring via the Pallas provenance kernel: an unrolled
-    loop over the G loci (one executable; same kernel shapes per locus).
-
-    stacked_pallas / stacked_meta: per-field stacks with a leading locus
-    axis; seqs (G, B, L); lengths (G, B).  Returns dict of (G, B) arrays."""
-    from advntr_tpu.ops.pallas_viterbi import viterbi_pallas_stats
-    del stacked_meta
-    G = seqs.shape[0]
-    outs = []
-    for g in range(G):
-        pallas_g = tuple(x[g] for x in stacked_pallas)
-        outs.append(viterbi_pallas_stats(pallas_g, seqs[g], lengths[g],
-                                         return_path=return_path,
-                                         interpret=interpret))
-    return {k: jnp.stack([o[k] for o in outs]) for k in outs[0]}

@@ -28,7 +28,7 @@ def keywords_for_locus(ref_vntr, short_reads: bool = True,
         # keyword OCCURRENCES per read (filtering/main.cc:17,282), which
         # two single-occurrence exact 80-mers can never satisfy, and any
         # realistic long-read error rate breaks exact 80bp matches anyway:
-        # that configuration recruits nothing.  TPU-native redesign: sample
+        # that configuration recruits nothing.  Redesign here: sample
         # the same flank probes into stepped 15-mers so a noisy long read
         # overlapping a flank accumulates several exact short hits through
         # the one batched counting kernel (no host re-verification pass).

@@ -19,7 +19,7 @@ subgraph once, producing:
 - decode tables sufficient to re-expand any effective hop into the exact
   silent-state chain (for frameshift analysis and debug-path parity)
 
-The result is a plain first-order HMM a TPU kernel can scan over with no
+The result is a plain first-order HMM a device kernel can scan over with no
 data-dependent control flow.
 """
 
@@ -79,7 +79,6 @@ class ModelArtifact:
 
     @property
     def n_states(self) -> int:
-        # log_E, not log_T: slim bank payloads strip the dense tables
         return self.log_E.shape[0]
 
     @property

@@ -5,7 +5,7 @@ The reference's model-checkpoint format is pomegranate's HMM JSON
 vntr_finder.py:117-138 when USE_TRAINED_HMMS is on: per-(locus,
 read-length) files ``<TRAINED_HMMS_DIR>/<vid>_<readlen>.json``.  This
 module reads that format into an :class:`HmmGraph` — so existing trained
-model caches keep working against the TPU engine — and writes it back out,
+model caches keep working against the device engine — and writes it back out,
 which both round-trip-tests the importer without pomegranate and lets
 models trained here feed tooling that expects the reference format.
 

@@ -1,9 +1,10 @@
 """ctypes bridge to the native C++ sparse Viterbi engine.
 
-Compiles native/viterbi_sparse.cc on first use (cached .so next to the
-source).  Exposes the same graph semantics as the compiled-artifact path but
-over the *full* silent-state graph — the CPU baseline the TPU kernels are
-benchmarked against, and a host fallback.
+Compiles native/*.cc on first use into native/build/ (never committed: the
+libraries are built for the host they run on).  Exposes the same graph
+semantics as the compiled-artifact path but over the *full* silent-state
+graph — the CPU baseline the device kernels are compared against, and a
+host fallback.
 """
 
 from __future__ import annotations
@@ -16,15 +17,35 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
 _SRC = os.path.join(_NATIVE_DIR, "viterbi_sparse.cc")
-_SO = os.path.join(_NATIVE_DIR, "libviterbi_sparse.so")
+_SO = os.path.join(_BUILD_DIR, "libviterbi_sparse.so")
 
 _lib = None
 
 _CLOSURE_SRC = os.path.join(_NATIVE_DIR, "model_closure.cc")
-_CLOSURE_SO = os.path.join(_NATIVE_DIR, "libmodel_closure.so")
+_CLOSURE_SO = os.path.join(_BUILD_DIR, "libmodel_closure.so")
 
 _closure_lib = None
+
+
+def _build(src: str, so: str) -> None:
+    """Compile ``src`` into ``so`` unless an up-to-date build exists.
+
+    The compiler writes a per-process temporary name and ``os.replace``
+    publishes it, so concurrent processes never load a half-written
+    library: each sees either the old file or a complete new one."""
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = "%s.tmp.%d" % (so, os.getpid())
+    try:
+        subprocess.check_call(["g++", "-O3", "-march=native", "-shared",
+                               "-fPIC", src, "-o", tmp])
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def load_closure():
@@ -34,12 +55,7 @@ def load_closure():
     global _closure_lib
     if _closure_lib is not None:
         return _closure_lib
-    if (not os.path.exists(_CLOSURE_SO)
-            or os.path.getmtime(_CLOSURE_SO)
-            < os.path.getmtime(_CLOSURE_SRC)):
-        subprocess.check_call(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             _CLOSURE_SRC, "-o", _CLOSURE_SO])
+    _build(_CLOSURE_SRC, _CLOSURE_SO)
     lib = ctypes.CDLL(_CLOSURE_SO)
     i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     i16 = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
@@ -64,11 +80,7 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if (not os.path.exists(_SO)
-            or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-        subprocess.check_call(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC,
-             "-o", _SO])
+    _build(_SRC, _SO)
     lib = ctypes.CDLL(_SO)
     lib.viterbi_sparse.restype = ctypes.c_int
     lib.viterbi_sparse.argtypes = [

@@ -4,7 +4,7 @@ Reference capability class: pomegranate/hmm.pyx:2369 (``fit``) and :2620
 (``_summarize``) — expected-count accumulation over reads followed by
 normalization.  The reference *runtime* never exercises this path (its EM
 calls are commented out, advntr/hmm_utils.py:676-678; ``--update`` is
-Viterbi-path-based) — this module closes the capability gap TPU-natively:
+Viterbi-path-based) — this module closes the capability gap on device:
 the silent-eliminated sum-semiring model (models/compiler.compile_graph_sum)
 is an ordinary first-order HMM over emitting states, so the textbook
 forward-backward xi/gamma statistics are exact on it, and one batched
@@ -16,10 +16,12 @@ accumulating
   emit[i, s]    += E[# emissions of symbol s from i]
   gamma_start/end: expected start/end occupancies
 with every accumulator reduced over the batch inside the scan — the output
-is O(n^2), never (L, B, n).  The per-column xi outer product rides the MXU:
-exp(alpha_t)[B, n] x (exp(e+beta)[B, n]) -> (n, n) via one matmul after
+is O(n^2), never (L, B, n).  The per-column xi outer product is one
+matmul, exp(alpha_t)[B, n] x (exp(e+beta)[B, n]) -> (n, n), after
 per-read rescaling by 1/exp(loglik), then an elementwise multiply by
-exp(log_T).
+exp(log_T).  Every float32 product here runs at HIGHEST precision: a
+TF32 product keeps ~3 decimal digits, which would shift the expected
+counts EM re-estimates from.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import jax
 import jax.numpy as jnp
 
 from advntr_tpu.ops.viterbi import NEG32
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _lse(x, axis):
@@ -76,9 +80,10 @@ def baum_welch_stats(log_T, log_E, log_start, log_end, seqs, lengths):
 
     # ---- backward, accumulating xi / emission / start counts ----
     bL = jnp.where((lengths == L)[:, None], log_end[None, :], NEG32)
-    emit0 = jnp.where(
+    emit0 = jnp.dot(jnp.where(
         (lengths == L)[:, None],
-        jnp.exp(aF + bL - loglik[:, None]), 0.0).T @ onehot[:, L - 1]
+        jnp.exp(aF + bL - loglik[:, None]), 0.0).T, onehot[:, L - 1],
+        precision=HIGHEST)
     expT = jnp.exp(log_T)
 
     def bstep(carry, inputs):
@@ -89,7 +94,7 @@ def baum_welch_stats(log_T, log_E, log_start, log_end, seqs, lengths):
         fa = jnp.exp(alpha_t - loglik[:, None]) * live
         fb = jnp.exp(e_next + beta_next)
         fb = jnp.where(live, fb, 0.0)
-        xi = xi + expT * jnp.dot(fa.T, fb,
+        xi = xi + expT * jnp.dot(fa.T, fb, precision=HIGHEST,
                                  preferred_element_type=log_T.dtype)
         # beta at column t (re-seeded at each read's own last column)
         rec = _lse(log_T[None, :, :] + (e_next + beta_next)[:, None, :], 2)
@@ -98,7 +103,7 @@ def baum_welch_stats(log_T, log_E, log_start, log_end, seqs, lengths):
         # emission counts at column t: gamma_t^T x onehot_t
         g = jnp.exp(alpha_t + beta_t - loglik[:, None])
         g = jnp.where((t < lengths)[:, None], g, 0.0)
-        emit = emit + jnp.dot(g.T, oh_t,
+        emit = emit + jnp.dot(g.T, oh_t, precision=HIGHEST,
                               preferred_element_type=log_T.dtype)
         return (beta_t, xi, emit), None
 

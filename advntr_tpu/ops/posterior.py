@@ -2,7 +2,7 @@
 
 Reference capability class: pomegranate/hmm.pyx:1541 (``_backward``),
 :1777 (``_forward_backward``) — per-read sparse-graph passes with silent
-states inside the hot loop.  The TPU-native design works on the
+states inside the hot loop.  The device design works on the
 silent-eliminated sum-semiring model (``compile_graph_sum``): one
 ``lax.scan`` forward storing alpha planes, one reversed scan computing
 beta while accumulating per-read posterior statistics, so the aggregate

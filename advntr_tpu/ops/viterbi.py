@@ -60,7 +60,7 @@ def viterbi_batch(log_T, log_E, log_start, log_end, seqs, lengths,
                   return_path: bool = True):
     """Batched Viterbi.
 
-    TPU-oriented structure: the forward scan performs ONE fused
+    Structure: the forward scan performs ONE fused
     broadcast+max reduction per symbol (no argmax, no gathers) and stores
     the value planes; the traceback re-derives each argmax on the single
     visited state per step — O(n) instead of O(n^2) — from the stored

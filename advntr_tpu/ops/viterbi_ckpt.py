@@ -1,9 +1,8 @@
 """Checkpointed (recompute) Viterbi traceback for long lattices.
 
-The plain kernels materialize per-column planes for the whole read — the
-struct kernel stores (L, B, 2P+nb) f32 value planes, the Pallas kernel
-(L, B, ~2P) int16 origin planes.  At PacBio scale (L ~ 10kb+, P ~ 3000)
-those planes exceed the HBM budget (SURVEY §7 hard part 5; the reference
+The plain struct kernel materializes per-column planes for the whole read:
+(L, B, 2P+nb) f32 value planes.  At PacBio scale (L ~ 10kb+, P ~ 3000)
+those planes outgrow device memory (SURVEY §7 hard part 5; the reference
 CPU kernel handles arbitrary n per read, pomegranate hmm.pyx:1970-2130,
 because its traceback matrix lives in host RAM).
 
@@ -18,8 +17,8 @@ This module trades FLOPs for memory with the classic two-pass scheme:
    next segment's planes replace them.
 
 Peak plane memory drops from O(L·B·P) to O(K·B·P) + O(L/K·B·P); K ~
-sqrt(L) gives the standard O(sqrt) memory Viterbi.  Forward work doubles
-(FLOPs are cheap on TPU; HBM capacity is the binding constraint).
+sqrt(L) gives the standard O(sqrt) memory Viterbi.  Forward work doubles:
+the trade is worth it where device memory, not arithmetic, binds.
 
 Exactness: the per-column math IS viterbi_struct.forward_step /
 silent_layer — shared functions, not copies — so scores, paths and
@@ -45,7 +44,7 @@ def _segment_emissions(m, codes):
     largest live emission plane at O(K·B·P) — precomputing them for the
     whole read (the pre-round-5 layout) materialized three (L, B, P)
     planes before the scan, which at the PacBio tract tail (L=P=20k)
-    alone exceeded HBM (measured: 22 GB for B=2)."""
+    alone exceeded device memory (measured: 22 GB for B=2)."""
     eM = jnp.transpose(jnp.take(m.eM, codes, axis=1), (1, 2, 0))
     eI = jnp.transpose(jnp.take(m.eI, codes, axis=1), (1, 2, 0))
     eI0 = jnp.transpose(jnp.take(m.eI0, codes, axis=1), (1, 2, 0))

@@ -1,17 +1,17 @@
 """Multi-host scale-out: locus-sharded panels over a jax.distributed runtime.
 
 The reference is single-node (multiprocessing only, vntr_finder.py:424-439).
-The TPU-native layout for genome-wide panels (158,522 loci,
-reference README.md:34-35):
+The layout for genome-wide panels (158,522 loci, reference
+README.md:34-35):
 
 - each host process owns a contiguous shard of the locus panel (its model
-  DB slice lives in host RAM, compiled models in its chips' HBM)
+  DB slice lives in host RAM, compiled models in its device's memory)
 - each host streams its own copy of the alignment's unmapped reads (or a
   byte-range shard of the BAM) through the recruitment filter for its loci
 - per-locus genotyping is embarrassingly parallel; the only cross-host
   traffic is the final ordered gather of small genotype records to host 0
 
-Per-read results never cross chips, so ICI carries no per-locus collectives;
+Per-read results never cross devices, so no per-locus collectives run;
 aggregate statistics (e.g. coverage histograms) reduce with psum when used.
 """
 
@@ -32,6 +32,32 @@ def initialize(coordinator_address: str | None = None,
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)
+
+
+def pin_to_card(index: int) -> str:
+    """Make card ``index`` of this host the only one this process sees.
+
+    One process per card: a JAX process reserves most of the memory of
+    every card it sees when its backend starts, so processes that share a
+    host must each see only their own.  Sets ``CUDA_VISIBLE_DEVICES``
+    (inherited by child processes); where it already lists cards, the
+    index-th of those is kept.  Must run before JAX's backend starts.
+    Returns the card id now visible."""
+    from jax._src import xla_bridge
+    if xla_bridge.backends_are_initialized():
+        raise RuntimeError("pin_to_card must run before JAX's backend "
+                           "initializes")
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is None:
+        card = str(index)
+    else:
+        cards = [c for c in visible.split(",") if c.strip()]
+        if not 0 <= index < len(cards):
+            raise ValueError(f"card {index} is not among the visible cards "
+                             f"{visible!r}")
+        card = cards[index].strip()
+    os.environ["CUDA_VISIBLE_DEVICES"] = card
+    return card
 
 
 def shard_loci(target_vntr_ids, process_id: int, num_processes: int):

@@ -2,16 +2,16 @@
 
 The reference is single-node: a serial per-locus loop
 (genome_analyzer.py:280-297) with per-read multiprocessing only on the
-PacBio path (vntr_finder.py:424-439).  The TPU-native layout is:
+PacBio path (vntr_finder.py:424-439).  Here the layout is:
 
 - ``loci`` mesh axis: each shard owns a slice of the locus panel — the
-  stacked model tensors (log_T, log_E, ...) live sharded in HBM, so a panel
-  of G compiled loci occupies G/n_loci of each chip's memory
+  stacked model tensors (log_T, log_E, ...) live sharded in device memory,
+  so a panel of G compiled loci occupies G/n_loci of each device's memory
 - ``reads`` mesh axis: each locus's candidate read batch is data-parallel
 
 Per-read results are independent (no cross-read reduction), so the only
 communication is the final gather of per-read scalars to the host — the
-embarrassingly-parallel best case for ICI.
+embarrassingly-parallel best case for the device interconnect.
 """
 
 from __future__ import annotations
@@ -88,53 +88,39 @@ def multi_locus_read_stats(mesh: Mesh, stacked_models, seqs, lengths):
     return _sharded_multi_locus_stats(mesh, sharding_models, seqs, lengths)
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "kernel", "interpret"))
-def _sharded_grouped_stats(mesh, stacked_kernel, stacked_meta, seqs,
-                           lengths, suffix_lasts, kernel: str,
-                           interpret: bool):
+@functools.partial(jax.jit, static_argnames=("mesh",))
+def _sharded_grouped_stats(mesh, stacked_struct, stacked_meta, seqs,
+                           lengths, suffix_lasts):
     in_specs = (
-        tuple(P("loci") for _ in stacked_kernel),
+        tuple(P("loci") for _ in stacked_struct),
         tuple(P("loci") for _ in stacked_meta),
         P("loci", "reads", None),
         P("loci", "reads"),
         P("loci"),
     )
-
-    def shard_body(models, meta, s, ln, sl):
-        if kernel == "pallas":
-            return da.read_stats_pallas_grouped(models, meta, s, ln,
-                                                interpret=interpret)
-        return da.read_stats_struct_grouped(models, meta, s, ln, sl)
-
     return jax.shard_map(
-        shard_body,
+        da.read_stats_struct_grouped,
         mesh=mesh,
         in_specs=in_specs,
         out_specs=P("loci", "reads"),
-        # pallas_call out_shapes carry no varying-mesh-axes annotation, so
-        # the vma checker cannot validate them; outputs are per-shard-local
-        # by construction (no cross-shard reduction anywhere)
-        check_vma=False,
-    )(stacked_kernel, stacked_meta, seqs, lengths, suffix_lasts)
+    )(stacked_struct, stacked_meta, seqs, lengths, suffix_lasts)
 
 
-def sharded_grouped_read_stats(mesh: Mesh, stacked_kernel, stacked_meta,
-                               seqs, lengths, suffix_lasts=None,
-                               kernel: str = "struct",
-                               interpret: bool = False):
-    """PRODUCTION multi-chip dispatch: the same grouped fused
-    Viterbi+analytics executables the single-chip analyzer runs
-    (da.read_stats_{struct,pallas}_grouped), sharded loci x reads.
+def sharded_grouped_read_stats(mesh: Mesh, stacked_struct, stacked_meta,
+                               seqs, lengths, suffix_lasts=None):
+    """PRODUCTION multi-device dispatch: the same grouped fused
+    Viterbi+analytics executable the single-device analyzer runs
+    (da.read_stats_struct_grouped), sharded loci x reads.
 
-    Each device owns G/n_loci locus models (HBM-resident) and scores
-    B/n_reads reads per locus; per-read outputs are independent, so the only
-    collective is the output all-gather XLA inserts for the host fetch.
-    Replaces the reference's serial per-locus loop
-    (genome_analyzer.py:280-297) at scale-out.
+    Each device owns G/n_loci locus models and scores B/n_reads reads per
+    locus; per-read outputs are independent, so the only collective is
+    the output all-gather XLA inserts for the host fetch.  Replaces the
+    reference's serial per-locus loop (genome_analyzer.py:280-297) at
+    scale-out.
 
-    stacked_kernel: per-field stacks of PallasStructModel.flat() or
-    StructDeviceModel.flat() with a leading locus axis (G, ...).
-    seqs: (G, B, L); lengths: (G, B); suffix_lasts: (G,) for struct.
+    stacked_struct: per-field stacks of StructDeviceModel.flat() with a
+    leading locus axis (G, ...).
+    seqs: (G, B, L); lengths: (G, B); suffix_lasts: (G,).
     Returns dict of (G, B) arrays.
     """
     g_axis = mesh.shape["loci"]
@@ -145,8 +131,8 @@ def sharded_grouped_read_stats(mesh: Mesh, stacked_kernel, stacked_meta,
     if suffix_lasts is None:
         suffix_lasts = np.zeros(G, dtype=np.int32)
     put = jax.device_put
-    stacked_kernel = tuple(
-        put(m, NamedSharding(mesh, P("loci"))) for m in stacked_kernel)
+    stacked_struct = tuple(
+        put(m, NamedSharding(mesh, P("loci"))) for m in stacked_struct)
     stacked_meta = tuple(
         put(m, NamedSharding(mesh, P("loci"))) for m in stacked_meta)
     seqs = put(jnp.asarray(seqs), NamedSharding(mesh, P("loci", "reads",
@@ -155,8 +141,8 @@ def sharded_grouped_read_stats(mesh: Mesh, stacked_kernel, stacked_meta,
                                                       P("loci", "reads")))
     suffix_lasts = put(jnp.asarray(suffix_lasts),
                        NamedSharding(mesh, P("loci")))
-    return _sharded_grouped_stats(mesh, stacked_kernel, stacked_meta, seqs,
-                                  lengths, suffix_lasts, kernel, interpret)
+    return _sharded_grouped_stats(mesh, stacked_struct, stacked_meta, seqs,
+                                  lengths, suffix_lasts)
 
 
 def panel_mesh(group_size: int, batch: int, devices=None) -> Mesh | None:

@@ -34,7 +34,7 @@ def make_panel(n_loci: int, long_every: int = 12):
     """Mixed-tract-length PacBio panel.  Most loci carry tracts up to ~1kb
     (the reference's PacBio DB has no <140bp restriction); every
     ``long_every``-th locus is a LONG-tract locus (~2.3-2.9kb), whose
-    trimmed decode window exceeds ADVNTR_TPU_CKPT_L=2048 and therefore
+    trimmed decode window exceeds finder.CKPT_TRACEBACK_L=2048 and therefore
     routes through the checkpointed long-lattice kernel inside the panel
     (the reference decodes these with the same unbounded-n host DP,
     hmm.pyx:1970-2130)."""

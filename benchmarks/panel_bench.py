@@ -36,7 +36,7 @@ def make_panel(n_loci: int):
         # spanning read is physically observable at panel coverage — a
         # 120bp allele vs 150bp reads yields ~1 spanning read at 30x and
         # NO short-read method (the reference included) can call it
-        # (locus-1082 diagnosis, PERF_NOTES round 2)
+        # (locus-1082 diagnosis, git show de509b1:PERF_NOTES.md round 2)
         plen = rng.choice([8, 10, 12, 15, 20, 24])
         max_copies = max(2, (READ_LEN - 40) // plen)
         pattern = "".join(rng.choice("ACGT") for _ in range(plen))

@@ -6,8 +6,9 @@
 // column; silent fed by current-column emitting; silent fed by
 // lower-topo silent), then traceback from the end state.
 //
-// Used as (a) the honest CPU baseline for the TPU benchmark and (b) a
-// host-side fallback engine.  Built with: g++ -O3 -shared -fPIC.
+// Used as (a) the CPU baseline the device kernels are compared against and
+// (b) a host-side fallback engine.  advntr_tpu/native_bridge.py builds it
+// into native/build/ on first use (g++ -O3 -march=native -shared -fPIC).
 
 #include <cstdint>
 #include <cstring>

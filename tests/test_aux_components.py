@@ -36,6 +36,8 @@ def test_dnn_model_roundtrip(tmp_path):
     dr.save_model(params, path)
     loaded = dr.load_model(path)
     x = np.zeros((2, dr.INPUT_DIM), dtype=np.float32)
+    # both sides run the same default-precision products on equal weights,
+    # so the outputs agree to float32 rounding (the default rtol=1e-7)
     np.testing.assert_allclose(np.asarray(dr.predict(params, x)),
                                np.asarray(dr.predict(loaded, x)))
 

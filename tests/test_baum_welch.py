@@ -92,6 +92,43 @@ def test_stats_match_f64_oracle():
                                rtol=2e-3, atol=1e-3)
 
 
+def test_ragged_batch_counts_match_f64_oracle():
+    """Reads of different lengths in one padded batch: every read's
+    counts stop at its own last column.  Tolerance: float32 exp/log sums
+    over <=30 columns against float64 keep ~5 significant digits, so
+    rtol=1e-3 with atol=1e-3 for counts near zero; the matrix products run
+    at HIGHEST precision, so no TF32 rounding (~3 digits) enters."""
+    g, left, right = _tiny_model(pattern="ACGTTG", copies=2, flank=6,
+                                 seed=8)
+    log_T, log_E, log_start, log_end = compile_graph_sum(g)
+    rng = random.Random(4)
+    reads = []
+    for reps in (1, 2, 2, 1, 2):
+        s = left[rng.randint(0, 3):] + "ACGTTG" * reps + \
+            right[:rng.randint(2, 6)]
+        s = "".join(c if rng.random() > 0.05 else rng.choice("ACGT")
+                    for c in s)
+        reads.append(dna.encode(s))
+    assert len({len(r) for r in reads}) > 2
+    batch, lengths = dna.pad_batch(reads, multiple=8)
+    dev = tuple(clean_neg(p) for p in (log_T, log_E, log_start, log_end))
+    stats = baum_welch_stats(*dev, jnp.asarray(batch), jnp.asarray(lengths))
+    want = [np.zeros_like(log_T), np.zeros((log_T.shape[0], 4)),
+            np.zeros(log_T.shape[0]), np.zeros(log_T.shape[0])]
+    logliks = []
+    for codes in reads:
+        ll, *counts = _oracle_counts(log_T, log_E, log_start, log_end,
+                                     list(codes))
+        logliks.append(ll)
+        for acc, c in zip(want, counts):
+            acc += c
+    np.testing.assert_allclose(np.asarray(stats["loglik"]), logliks,
+                               rtol=1e-4, atol=1e-3)
+    for key, w in zip(("xi", "emit", "gamma_start", "gamma_end"), want):
+        np.testing.assert_allclose(np.asarray(stats[key]), w, rtol=1e-3,
+                                   atol=1e-3, err_msg=key)
+
+
 def test_em_monotone_loglik():
     g, left, right = _tiny_model(pattern="ACGTTG", copies=3, flank=10)
     log_T, log_E, log_start, log_end = compile_graph_sum(g)

@@ -107,23 +107,34 @@ def panel(tmp_path_factory):
 
 WORKER = textwrap.dedent("""
     import json, os, sys
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    from advntr_tpu.config import Config
-    from advntr_tpu.models.db import load_unique_vntrs_data
-    from advntr_tpu.parallel.distributed import run_sharded_panel
 
-    db, bam, workdir, pid, nproc = sys.argv[1:6]
-    pid, nproc = int(pid), int(nproc)
-    refs = load_unique_vntrs_data(db)
-    ids = sorted(r.id for r in refs)
-    merged = run_sharded_panel(refs, ids, bam, workdir, Config(),
-                               process_id=pid, num_processes=nproc)
-    if pid == 0:
-        with open(os.path.join(workdir, "merged.json"), "w") as fh:
-            json.dump(merged, fh)
+
+    def main():
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        from advntr_tpu.config import Config
+        from advntr_tpu.models.db import load_unique_vntrs_data
+        from advntr_tpu.parallel.distributed import run_sharded_panel
+
+        db, bam, workdir, pid, nproc = sys.argv[1:6]
+        pid, nproc = int(pid), int(nproc)
+        refs = load_unique_vntrs_data(db)
+        ids = sorted(r.id for r in refs)
+        merged = run_sharded_panel(refs, ids, bam, workdir, Config(),
+                                   process_id=pid, num_processes=nproc)
+        if pid == 0:
+            with open(os.path.join(workdir, "merged.json"), "w") as fh:
+                json.dump(merged, fh)
+
+
+    # the model-builder pool spawns children that re-import __main__
+    if __name__ == "__main__":
+        main()
 """)
+
+# the repository root, for workers started from a temporary directory
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _expected():
@@ -149,7 +160,7 @@ def test_run_sharded_panel_two_processes(panel, tmp_path):
     """Two actual OS processes, one locus each; host 0 merges."""
     script = tmp_path / "worker.py"
     script.write_text(WORKER)
-    env = dict(os.environ, PYTHONPATH="/root/repo")
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
     env.pop("XLA_FLAGS", None)  # workers run single-device CPU
     procs = [subprocess.Popen(
         [sys.executable, str(script), panel["db"], panel["bam"],

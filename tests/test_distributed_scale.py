@@ -8,9 +8,8 @@ structured records, zero error rows):
   the round-4 verdict asked for the bit-identical-merge property to be
   exercised on every `pytest` run, not only opt-in.
 - `test_100_locus_panel_two_processes` is the full scale exercise
-  (~5 CPU-min), opt-in via ADVNTR_TPU_SCALE_TESTS=1; its outcome is
-  recorded in PERF_NOTES.md as BASELINE config #5 evidence (genome-wide
-  feasibility, reference README.md:34-35).
+  (~5 CPU-min), opt-in via ADVNTR_TPU_SCALE_TESTS=1 (BASELINE config #5:
+  genome-wide feasibility, reference README.md:34-35).
 """
 
 import json
@@ -62,30 +61,41 @@ def build_panel(tmp, n_loci):
 
 WORKER = textwrap.dedent("""
     import json, os, sys
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    from advntr_tpu.config import Config
-    from advntr_tpu.models.db import load_unique_vntrs_data
-    from advntr_tpu.parallel.distributed import run_sharded_panel
 
-    db, bam, workdir, pid, nproc = sys.argv[1:6]
-    pid, nproc = int(pid), int(nproc)
-    refs = load_unique_vntrs_data(db)
-    ids = sorted(r.id for r in refs)
-    merged = run_sharded_panel(refs, ids, bam, workdir, Config(),
-                               process_id=pid, num_processes=nproc)
-    if pid == 0:
-        with open(os.path.join(workdir, "merged.json"), "w") as fh:
-            json.dump(merged, fh)
+
+    def main():
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        from advntr_tpu.config import Config
+        from advntr_tpu.models.db import load_unique_vntrs_data
+        from advntr_tpu.parallel.distributed import run_sharded_panel
+
+        db, bam, workdir, pid, nproc = sys.argv[1:6]
+        pid, nproc = int(pid), int(nproc)
+        refs = load_unique_vntrs_data(db)
+        ids = sorted(r.id for r in refs)
+        merged = run_sharded_panel(refs, ids, bam, workdir, Config(),
+                                   process_id=pid, num_processes=nproc)
+        if pid == 0:
+            with open(os.path.join(workdir, "merged.json"), "w") as fh:
+                json.dump(merged, fh)
+
+
+    # the model-builder pool spawns children that re-import __main__
+    if __name__ == "__main__":
+        main()
 """)
+
+# the repository root, for workers started from a temporary directory
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run_sharded_vs_single(tmp_path, n_loci):
     db, bam = build_panel(str(tmp_path), n_loci)
     script = tmp_path / "worker.py"
     script.write_text(WORKER)
-    env = dict(os.environ, PYTHONPATH="/root/repo")
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
     env.pop("XLA_FLAGS", None)
 
     # two real OS processes over disjoint halves of the panel

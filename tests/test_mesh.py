@@ -66,7 +66,7 @@ def test_data_parallel_single_locus(models):
                                np.asarray(ref["logp"]), rtol=1e-5)
 
 
-# ---- PRODUCTION grouped dispatch, sharded (struct + pallas kernels) --------
+# ---- PRODUCTION grouped dispatch, sharded ----------------------------------
 
 @pytest.fixture(scope="module")
 def grouped():
@@ -77,29 +77,14 @@ def grouped():
     return patterns, stacks, seqs, lengths
 
 
-def test_sharded_grouped_struct_exact(grouped):
+@pytest.mark.parametrize("n_loci,n_reads", [(2, 4), (4, 2)])
+def test_sharded_grouped_struct_exact(grouped, n_loci, n_reads):
     """Sharded production struct dispatch == unsharded, bit for bit."""
     from advntr_tpu.parallel.mesh import sharded_grouped_read_stats
-    patterns, (st, pa, meta, sl), seqs, lengths = grouped
-    mesh = make_mesh(n_loci=2, n_reads=4)
+    patterns, (st, meta, sl), seqs, lengths = grouped
+    mesh = make_mesh(n_loci=n_loci, n_reads=n_reads)
     out = sharded_grouped_read_stats(mesh, st, meta, seqs, lengths,
-                                     suffix_lasts=sl, kernel="struct")
-    import jax.numpy as jnp
-    ref = da.read_stats_struct_grouped(st, meta, jnp.asarray(seqs),
-                                       jnp.asarray(lengths),
-                                       jnp.asarray(sl))
-    for k in ref:
-        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(ref[k]),
-                                      err_msg=k)
-
-
-def test_sharded_grouped_pallas_exact(grouped):
-    """Sharded production pallas dispatch (interpret off-TPU) == struct."""
-    from advntr_tpu.parallel.mesh import sharded_grouped_read_stats
-    patterns, (st, pa, meta, sl), seqs, lengths = grouped
-    mesh = make_mesh(n_loci=4, n_reads=2)
-    out = sharded_grouped_read_stats(mesh, pa, meta, seqs, lengths,
-                                     kernel="pallas", interpret=True)
+                                     suffix_lasts=sl)
     import jax.numpy as jnp
     ref = da.read_stats_struct_grouped(st, meta, jnp.asarray(seqs),
                                        jnp.asarray(lengths),

@@ -5,7 +5,8 @@ each certified mismatch must carry BOTH the pipeline's call and the
 independent oracle's call, and the committed pipeline mismatch lists must
 join consistently, so that `oracle == pipeline` is checkable from the
 repository alone (no /tmp workdirs).  Reference bar: the mismatch triage
-contract of PERF_NOTES round-4 (33/33 certified evidence-identical).
+contract of ``git show de509b1:PERF_NOTES.md`` round 4 (33/33 certified
+evidence-identical).
 """
 
 import json

@@ -99,9 +99,9 @@ def test_ckpt_matches_f64_oracle():
 def test_ckpt_pacbio_scale():
     """P ~ 3000-state lattice x multi-kb read: the shape class the plain
     kernels cannot hold planes for at production batch sizes."""
-    # CI-sized stand-in for the full PacBio shape: the same kernel was
-    # driven on the real TPU at P=2816 x L=2432 with bit-exact parity and
-    # f64 path rescoring (PERF_NOTES round-2); this keeps the suite fast
+    # CI-sized stand-in for the full PacBio shape; chip_smoke.py runs the
+    # same kernel at the struct P of a 2432-column read and checks it
+    # against the unsegmented kernel bit for bit
     pattern = _rand_seq(5, 30)
     copies = 16
     left = _rand_seq(6, 150)
@@ -140,8 +140,7 @@ def test_ckpt_pacbio_scale():
 
 
 def test_run_device_routes_long_reads(monkeypatch):
-    """finder.run_device picks the checkpointed path for long batches,
-    including when the model was built for the Pallas kernel."""
+    """finder.run_device picks the checkpointed path for long batches."""
     from advntr_tpu.engine import finder as finder_mod
     from advntr_tpu.engine.finder import LocusModelCache
 
@@ -153,7 +152,7 @@ def test_run_device_routes_long_reads(monkeypatch):
     art = compile_graph(g)
     cache = LocusModelCache()
     lm = cache._build(g, art)
-    assert lm.struct_model() is not None
+    assert lm.struct is not None
 
     read = "ACGTTGCA" + "CAGCAG" * 3 + "TTACGGAT"
     rows = [dna.encode(read)]
@@ -184,8 +183,9 @@ def test_run_device_routes_long_reads(monkeypatch):
 def test_ckpt_no_full_read_planes():
     """Memory-shape regression: the checkpointed kernel must never
     materialize a full-read (L, B, P) plane — precomputing the emission
-    lattices before the segment scan OOM'd real HBM at the PacBio tract
-    tail (L=P=20480 needed 22 GB of a 16 GB v5e; PERF_NOTES round 5).
+    lattices before the segment scan ran out of device memory at the
+    PacBio tract tail (L=P=20480 needed 22 GB for B=2;
+    ``git show de509b1:PERF_NOTES.md``, round 5).
     Every intermediate in the traced program must stay below the
     (L-1)*B*P element count of one such lattice."""
     import jax
